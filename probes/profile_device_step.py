@@ -1,199 +1,293 @@
-"""On-device step profiling (VERDICT r4 #1).
+"""Device-step anatomy of bank4 and chan64 from a jax.profiler trace.
 
-Captures a jax.profiler trace of the bank4 and chan64 compiled steps on
-the REAL chip, parses the device plane of the Perfetto/Chrome trace the
-profiler writes, and reports per-op device time, pipeline occupancy
-(device busy time / wall), and achieved HBM GB/s from XLA's own
-bytes-accessed cost analysis over the MEASURED device time — replacing
-the r4 "hbm_util_lower >= 0.32" wall-clock hand-wave with trace-derived
-numbers. Run from the repo root on the real chip:
+Traces a few device steps of each bank (chip_smoke.py's configurations,
+device-resident random blocks), reads the trace with
+jax.profiler.ProfileData, and attributes every device kernel to a stage
+of the step through the compiled HLO's op_name metadata: the banks wrap
+their stages in jax.named_scope (STAGES below; anything else is
+"other"). Reports, per bank:
 
-    timeout 900 python probes/profile_device_step.py | tail -1
+  * host wall ms per step, untraced and traced;
+  * device busy us per step (union of kernel intervals) and the idle
+    share of the traced window;
+  * per-stage device us per step and share of the busy time, and the
+    top kernels;
+  * XLA's cost analysis (flops, bytes accessed), and for a device_kind
+    listed in bench.PEAKS the roofline share of the step against the
+    published float32 and memory peaks (an unknown kind gets none);
+  * what a large bf16 matmul and a large copy reach on this card, as the
+    achievable references.
 
-Findings land in PERF.md ("On-device step anatomy") and PROBES_r05.json.
+    python probes/profile_device_step.py [--small] [--no-command-buffer]
+                                         [--out DIR]
+
+--no-command-buffer runs XLA without CUDA command buffers, so that every
+kernel event names its HLO op; the stage shares then cover the library
+kernels (cuBLAS gemms) too, at the cost of per-kernel launch overhead.
+
+Writes DIR/profile.json (default: the current directory; profile_nocb.json
+with --no-command-buffer) and prints a summary.
 """
 
+from __future__ import annotations
+
+import argparse
+import collections
 import glob
-import gzip
 import json
 import os
+import re
+import statistics
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import bench  # noqa: E402
+import chip_smoke as cs  # noqa: E402
 
-ITERS = 30
+STAGES = ("dequantize", "mix_resample", "channel_resample", "branch_filter",
+          "channel_transform", "af_filter", "demod", "wire_out")
+ITERS = 10
 
 
-def _parse_device_plane(trace_dir: str) -> dict:
-    """Chrome-trace -> per-op totals for the /device:TPU:0 process."""
-    paths = glob.glob(os.path.join(
-        trace_dir, "plugins", "profile", "*", "*.trace.json.gz"))
-    assert paths, f"no trace written under {trace_dir}"
-    d = json.load(gzip.open(sorted(paths)[-1]))
-    evs = d["traceEvents"]
-    procs = {e["pid"]: e["args"]["name"] for e in evs
-             if e.get("ph") == "M" and e.get("name") == "process_name"}
-    dev_pids = {p for p, n in procs.items() if "device" in n.lower()}
-    ops: dict = {}
-    t_lo, t_hi, busy = None, None, 0.0
-    for e in evs:
-        if e.get("ph") != "X" or e.get("pid") not in dev_pids:
+def stage_of(op_name: str) -> str | None:
+    """Innermost known stage in an op_name path, or None. Transforms wrap
+    a scope's name (vmap(demod))."""
+    hit = None
+    for part in op_name.split("/"):
+        while (m := re.fullmatch(r"\w+\((.*)\)", part)):
+            part = m.group(1)
+        if part in STAGES:
+            hit = part
+    return hit
+
+
+def hlo_stage_map(hlo_text: str) -> dict:
+    """HLO instruction name -> stage, from the compiled module's text. An
+    instruction without a stage of its own (a fusion whose metadata was
+    dropped) takes the most common stage inside its called computation."""
+    comp_stages: dict = collections.defaultdict(collections.Counter)
+    inst: dict = {}
+    comp = None
+    for line in hlo_text.splitlines():
+        head = re.match(r"^(?:ENTRY\s+)?%?([\w.\-]+)\s.*\{\s*$", line)
+        if head and " = " not in line:
+            comp = head.group(1)
             continue
-        name, dur = e["name"], float(e.get("dur", 0.0))
-        # module-level events (jit_<fn>(...)) wrap the per-op rows on a
-        # separate line; keep both, callers split them
-        ops[name] = ops.get(name, 0.0) + dur
-        ts = float(e.get("ts", 0.0))
-        t_lo = ts if t_lo is None else min(t_lo, ts)
-        t_hi = max(t_hi or 0.0, ts + dur)
-        if not name.startswith("jit_"):
-            busy += dur
-    return {"ops_us": ops, "span_us": (t_hi - t_lo) if t_lo else 0.0,
-            "busy_us": busy}
-
-
-def _cost_analysis(fn, *args) -> dict:
-    try:
-        import jax
-        lowered = jax.jit(fn).lower(*args)
-        ca = lowered.compile().cost_analysis()
-        if isinstance(ca, (list, tuple)):
-            ca = ca[0]
-        return {k: float(v) for k, v in ca.items()
-                if isinstance(v, (int, float)) and (
-                    "bytes" in k or "flops" in k or "transcendentals" in k)}
-    except Exception as e:  # noqa: BLE001
-        return {"error": repr(e)[:200]}
-
-
-def _profile(tag: str, step, blocks, extra_cost_args=None) -> dict:
-    import jax
-    out = step(blocks[0])
-    jax.block_until_ready(out)
-    trace_dir = f"/tmp/jtrace_{tag}"
-    t0 = time.perf_counter()
-    with jax.profiler.trace(trace_dir):
-        for i in range(ITERS):
-            out = step(blocks[i % len(blocks)])
-        jax.block_until_ready(out)
-    wall_s = time.perf_counter() - t0
-    plane = _parse_device_plane(trace_dir)
-    module = {n: us for n, us in plane["ops_us"].items()
-              if n.startswith("jit_")}
-    per_op = {n: us for n, us in plane["ops_us"].items()
-              if not n.startswith("jit_")}
-    dev_total_us = sum(module.values()) or plane["busy_us"]
-    step_us = dev_total_us / ITERS
-    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:12]
-    return {
-        "iters": ITERS,
-        "wall_ms_per_iter": wall_s / ITERS * 1e3,
-        "device_step_us": round(step_us, 1),
-        "device_busy_us_per_iter": round(plane["busy_us"] / ITERS, 1),
-        "device_occupancy_of_wall": round(
-            (dev_total_us / 1e6) / wall_s, 4),
-        "top_ops_us_per_iter": {n: round(us / ITERS, 1)
-                                for n, us in top},
-        "top_ops_pct_of_step": {n: round(100.0 * us / dev_total_us, 1)
-                                for n, us in top},
-    }
-
-
-def profile_bank4() -> dict:
-    from pysdr_tpu.tables import Mode
-    bank = bench._bank(8e6, [Mode.AM, Mode.NFM, Mode.USB, Mode.CW],
-                       out_block=24576)
-    d = bank.design
-    blocks = bench._rand_blocks(d.in_block)
-    res = _profile("bank4", bank.step_device, blocks)
-    res["in_block"] = d.in_block
-    ca = _cost_analysis(
-        bank.step_functional, bank.state, blocks[0], bank.params)
-    res["cost_analysis"] = ca
-    if "bytes accessed" in ca and res["device_step_us"]:
-        res["achieved_hbm_gbps"] = round(
-            ca["bytes accessed"] / (res["device_step_us"] / 1e6) / 1e9, 1)
-        res["achieved_tflops"] = round(
-            ca.get("flops", 0.0)
-            / (res["device_step_us"] / 1e6) / 1e12, 3)
-        res["hbm_util_vs_819"] = round(
-            res["achieved_hbm_gbps"] / 819.0, 3)
-    res["sps_from_device_time"] = round(
-        d.in_block / (res["device_step_us"] / 1e6), 0) \
-        if res["device_step_us"] else None
-    return res
-
-
-def profile_chan64() -> dict:
-    from pysdr_tpu.models.channelizer_bank import (ChannelizerBank,
-                                                   ChannelizerBankConfig,
-                                                   ChannelSettings)
-    from pysdr_tpu.tables import Mode
-    n = 64
-    cfg = ChannelizerBankConfig(
-        fs_in=n * 192e3, n_channels=n, fs_out=48e3, out_block=3072,
-        fc_hz=100e6,
-        channels=tuple(ChannelSettings(mode=Mode.AM) for _ in range(n)))
-    cb = ChannelizerBank(cfg)
-    blocks = bench._rand_blocks(cb.in_block)
-    res = _profile("chan64", cb.step_device, blocks)
-    res["in_block"] = cb.in_block
-    ca = _cost_analysis(
-        lambda s, x, p: cb._step(s, x, p), cb.state, blocks[0], cb.params)
-    res["cost_analysis"] = ca
-    if "bytes accessed" in ca and res["device_step_us"]:
-        res["achieved_hbm_gbps"] = round(
-            ca["bytes accessed"] / (res["device_step_us"] / 1e6) / 1e9, 1)
-        res["achieved_tflops"] = round(
-            ca.get("flops", 0.0)
-            / (res["device_step_us"] / 1e6) / 1e12, 3)
-        res["hbm_util_vs_819"] = round(
-            res["achieved_hbm_gbps"] / 819.0, 3)
-    res["sps_from_device_time"] = round(
-        cb.in_block / (res["device_step_us"] / 1e6), 0) \
-        if res["device_step_us"] else None
-    return res
-
-
-def profile_modes1ch() -> dict:
-    """BASELINE configs 1-3 (one executable, mode as traced data): the
-    1-RX device step at 2.048 MHz — completes trace coverage of every
-    BASELINE config (bank4 = config 4, chan64 = config 5)."""
-    from pysdr_tpu.tables import Mode
-    bank = bench._bank(2.048e6, [Mode.AM], out_block=16384, spacing=0,
-                       foffset=120e3)
-    d = bank.design
-    blocks = bench._rand_blocks(d.in_block)
+        m = re.match(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=", line)
+        if not m:
+            continue
+        op = re.search(r'op_name="([^"]*)"', line)
+        calls = re.search(r"calls=%?([\w.\-]+)", line)
+        st = stage_of(op.group(1)) if op else None
+        inst[m.group(1)] = (st, calls.group(1) if calls else None)
+        if comp and st:
+            comp_stages[comp][st] += 1
     out = {}
-    for name, mode, squelch in (("am", Mode.AM, -150.0),
-                                ("nfm_squelch", Mode.NFM, 10.0),
-                                ("ssb_agc", Mode.USB, -150.0)):
-        bank.set_mode(0, mode)
-        bank.set_squelch(0, squelch)
-        res = _profile(f"modes_{name}", bank.step_device, blocks)
-        res["in_block"] = d.in_block
-        res["sps_from_device_time"] = round(
-            d.in_block / (res["device_step_us"] / 1e6), 0) \
-            if res["device_step_us"] else None
-        out[name] = res
+    for name, (st, calls) in inst.items():
+        if st is None and calls and comp_stages.get(calls):
+            st = comp_stages[calls].most_common(1)[0][0]
+        out[name] = st or "other"
+    return out
+
+
+def device_events(trace_dir: str):
+    """[(plane, line, name, start_ns, dur_ns, hlo_op)] for the events on
+    device planes that carry an hlo_op stat, and event counts by line."""
+    from jax.profiler import ProfileData
+    paths = glob.glob(os.path.join(trace_dir, "plugins", "profile", "*",
+                                   "*.xplane.pb"))
+    assert paths, f"no trace under {trace_dir}"
+    pd = ProfileData.from_file(sorted(paths)[-1])
+    evs, lines = [], collections.Counter()
+    planes = [p for p in pd.planes if p.name.startswith("/device:")]
+    # the CPU backend runs its ops on host threads: a dry run reads those
+    for plane in planes or [p for p in pd.planes
+                            if p.name.startswith("/host:CPU")]:
+        for line in plane.lines:
+            for ev in line.events:
+                stats = dict(ev.stats)
+                hlo = stats.get("hlo_op")
+                lines[(plane.name, line.name, hlo is not None)] += 1
+                if hlo is None:
+                    continue
+                evs.append((plane.name, line.name, ev.name,
+                            float(ev.start_ns), float(ev.duration_ns),
+                            str(hlo)))
+    return evs, {f"{p} | {ln} | hlo_op={h}": n
+                 for (p, ln, h), n in lines.items()}
+
+
+def busy_ns(intervals) -> float:
+    """Length of the union of [start, start+dur) intervals."""
+    total, end = 0.0, None
+    for s, d in sorted(intervals):
+        e = s + d
+        if end is None or s > end:
+            total += d
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def anatomy(label: str, bank, n_in: int, peaks: dict | None) -> dict:
+    import jax
+    key = jax.random.PRNGKey(0)
+    xs = [jax.random.normal(jax.random.fold_in(key, i), (n_in, 2))
+          for i in range(4)]
+    st = bank.state
+    compiled = bank._step.lower(st, xs[0], bank.params).compile()
+    stage = hlo_stage_map(compiled.as_text())
+    ca = compiled.cost_analysis()
+    ca = ca[0] if isinstance(ca, (list, tuple)) else ca
+    flops = float(ca.get("flops", 0.0))
+    nbytes = float(ca.get("bytes accessed", 0.0))
+    st, out = bank._step(st, xs[0], bank.params)
+    jax.block_until_ready(out)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for i in range(ITERS):
+            st, out = bank._step(st, xs[i % 4], bank.params)
+        jax.block_until_ready((st, out))
+        walls.append((time.perf_counter() - t0) / ITERS * 1e3)
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        with jax.profiler.trace(td):
+            for i in range(ITERS):
+                st, out = bank._step(st, xs[i % 4], bank.params)
+            jax.block_until_ready((st, out))
+        traced_ms = (time.perf_counter() - t0) / ITERS * 1e3
+        evs, line_counts = device_events(td)
+    res = {"wall_ms_per_step": statistics.median(walls),
+           "wall_ms_windows": walls, "traced_wall_ms_per_step": traced_ms,
+           "trace_lines": line_counts, "flops": flops,
+           "bytes_accessed": nbytes}
+    if not evs:
+        res["error"] = "no device events with an hlo_op stat"
+        return res
+    # kernels launched from an XLA command buffer carry hlo_op
+    # "command_buffer"; their kernel name is the fusion's name with "_"
+    # for "." (library kernels such as cuBLAS gemms stay unattributed)
+    by_kernel = {re.sub(r"[.\-]", "_", k): v for k, v in stage.items()}
+
+    def stage_for(name, hlo):
+        if hlo in stage:
+            return stage[hlo]
+        return by_kernel.get(re.sub(r"[.\-]", "_", name), "other")
+
+    per_stage = collections.Counter()
+    per_kernel = collections.Counter()
+    for _, _, name, _, dur, hlo in evs:
+        per_stage[stage_for(name, hlo)] += dur
+        per_kernel[(name, hlo, stage_for(name, hlo))] += dur
+    span = max(s + d for _, _, _, s, d, _ in evs) - min(
+        s for _, _, _, s, _, _ in evs)
+    busy = busy_ns([(s, d) for _, _, _, s, d, _ in evs])
+    kernel_sum = sum(per_stage.values())
+    dev_us = busy / 1e3 / ITERS
+    res.update({
+        "device_busy_us_per_step": dev_us,
+        "kernel_sum_us_per_step": kernel_sum / 1e3 / ITERS,
+        "idle_share_of_kernel_span": 1.0 - busy / span if span else None,
+        "stage_us_per_step": {k: v / 1e3 / ITERS
+                              for k, v in per_stage.most_common()},
+        "stage_share": {k: v / kernel_sum for k, v in per_stage.most_common()},
+        "top_kernels": [
+            {"kernel": n[:80], "hlo_op": h, "stage": s,
+             "us_per_step": v / 1e3 / ITERS}
+            for (n, h, s), v in per_kernel.most_common(15)],
+        "achieved_gb_per_s": nbytes / (dev_us * 1e-6) / 1e9,
+        "achieved_tflop_per_s": flops / (dev_us * 1e-6) / 1e12,
+    })
+    if peaks:
+        t_mem = nbytes / (peaks["hbm_gb_per_s"] * 1e9)
+        t_f32 = flops / (peaks["f32_tflop_per_s"] * 1e12)
+        res["roofline_share"] = max(t_mem, t_f32) / (dev_us * 1e-6)
+        res["roofline_bound"] = "memory" if t_mem >= t_f32 else "f32 flops"
+    print(f"{label}: wall {res['wall_ms_per_step']:.3f} ms/step, device "
+          f"busy {dev_us:.1f} us/step, idle share "
+          f"{res['idle_share_of_kernel_span']:.3f}; stages "
+          + ", ".join(f"{k} {100 * v:.1f}%"
+                      for k, v in res["stage_share"].items()), flush=True)
+    return res
+
+
+def references(peaks: dict | None) -> dict:
+    """What a large bf16 matmul and a large copy reach on this device."""
+    import jax
+    import jax.numpy as jnp
+    n = 8192
+    a = jnp.ones((n, n), jnp.bfloat16)
+    mm = jax.jit(lambda x: jnp.dot(x, x, preferred_element_type=jnp.float32))
+    cp = jax.jit(lambda x: x + 1.0)
+    big = jnp.ones((1 << 28,), jnp.float32)         # 1 GiB
+    out = {}
+    for name, f, arg, work in (("bf16_matmul_tflop_per_s", mm, a,
+                                2.0 * n ** 3 / 1e12),
+                               ("copy_gb_per_s", cp, big,
+                                2.0 * big.size * 4 / 1e9)):
+        jax.block_until_ready(f(arg))
+        t0 = time.perf_counter()
+        for _ in range(10):
+            r = f(arg)
+        jax.block_until_ready(r)
+        out[name] = work * 10 / (time.perf_counter() - t0)
+    if peaks:
+        out["bf16_matmul_share_of_peak"] = (out["bf16_matmul_tflop_per_s"]
+                                            / peaks["bf16_tflop_per_s"])
+        out["copy_share_of_peak"] = (out["copy_gb_per_s"]
+                                     / peaks["hbm_gb_per_s"])
+    print(f"references: {json.dumps(out)}", flush=True)
     return out
 
 
 def main():
-    out = {"bank4": profile_bank4()}
-    print(f"# bank4: {json.dumps(out['bank4'])[:400]}",
-          file=sys.stderr, flush=True)
-    out["chan64"] = profile_chan64()
-    print(f"# chan64: {json.dumps(out['chan64'])[:400]}",
-          file=sys.stderr, flush=True)
-    out["modes1ch"] = profile_modes1ch()
-    print(f"# modes1ch: {json.dumps(out['modes1ch'])[:600]}",
-          file=sys.stderr, flush=True)
-    print(json.dumps(out))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--small", action="store_true",
+                    help="chip_smoke.py's toy sizes (a CPU dry run)")
+    ap.add_argument("--no-command-buffer", action="store_true",
+                    help="XLA without CUDA command buffers (per-kernel "
+                         "HLO attribution)")
+    ap.add_argument("--out", default=".")
+    opts = ap.parse_args()
+    if opts.no_command_buffer:
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                   " --xla_gpu_enable_command_buffer=")
+    import jax
+    from pysdr_tpu import app as app_mod
+    from pysdr_tpu.models.receiver import ReceiverBank
+    from pysdr_tpu.utils import enable_compilation_cache
+    enable_compilation_cache()
+    sz = cs.SMALL if opts.small else cs.FULL
+    dev = jax.devices()[0]
+    peaks = bench.PEAKS.get(dev.device_kind)
+    res = {"device": {"platform": dev.platform, "kind": dev.device_kind,
+                      "count": len(jax.devices())}, "peaks": peaks,
+           "xla_flags": os.environ.get("XLA_FLAGS", "")}
+    try:
+        res["nvidia_smi"] = cs.nvidia_smi()
+    except Exception as e:  # noqa: BLE001 — a CPU dry run has none
+        res["nvidia_smi"] = [repr(e)]
+    print(json.dumps(res), flush=True)
+    args = app_mod.build_parser().parse_args(sz["bank4"])
+    bank = ReceiverBank(app_mod.build_config(args))
+    res["bank4"] = anatomy("bank4", bank, bank.design.in_block, peaks)
+    args = app_mod.build_parser().parse_args(sz["chan64"]
+                                             + ["--audio-wire", "f32"])
+    cb, _, _ = app_mod.build_channelizer(args)
+    res["chan64"] = anatomy("chan64", cb, cb.in_block, peaks)
+    if not opts.small:
+        res["references"] = references(peaks)
+    os.makedirs(opts.out, exist_ok=True)
+    name = "profile_nocb.json" if opts.no_command_buffer else "profile.json"
+    with open(os.path.join(opts.out, name), "w") as f:
+        json.dump(res, f, indent=1)
 
 
 if __name__ == "__main__":

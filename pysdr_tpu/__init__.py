@@ -1,4 +1,4 @@
-"""pysdr_tpu — a TPU-native software-defined-radio framework.
+"""pysdr_tpu — a JAX software-defined-radio framework, run on NVIDIA GPUs.
 
 Brand-new design (not a port) with the capabilities of aa2il/pySDR
 (studied at /root/reference; see SURVEY.md). The reference's mutable

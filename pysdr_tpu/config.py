@@ -62,8 +62,9 @@ class PipelineConfig:
     """Whole-pipeline static configuration."""
     fs_in: float = 2.048e6           # RF sample rate
     fs_out: float = 48e3             # audio rate (48/96/192k, params.py:130)
-    out_block: int = 16384           # audio samples per block (>=1024; TPU
-                                     # prefers large blocks; 1024 matches the
+    out_block: int = 16384           # audio samples per block (>=1024;
+                                     # large blocks amortize per-step
+                                     # overhead; 1024 matches the
                                      # reference real-time chunk)
     foffset_hz: float = DEFAULT_FOFFSET_HZ
     transverter_hz: float = 0.0      # up/down-converter ahead of the SDR:
@@ -106,7 +107,7 @@ class PipelineConfig:
         center: 'direct' (Q-branch direct sampling) below the tuner's
         minimum, else 'quadrature' — the auto-switch the reference applies
         on retune (reference receiver.py:671-680). Pure source-layer
-        modeling here (no live hardware on a TPU host); the replay/synth
+        modeling here (no live USB hardware); the replay/synth
         sources carry it as an attribute for parity with setupSDR."""
         return "direct" if self.sdr_center_hz < tuner_min_hz \
             else "quadrature"

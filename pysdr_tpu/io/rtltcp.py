@@ -2,7 +2,8 @@
 
 The reference reaches real RTL dongles through SoapySDR/librtlsdr USB
 bindings (reference BUILD_RTL:37-99, utils.py:71-273 fake driver, SURVEY
-§2.8). A TPU host has no USB stack, but every RTL-SDR ships with
+§2.8). A compute host often has no USB dongle attached, but every RTL-SDR
+ships with
 `rtl_tcp`, the de-facto network streaming server: 12-byte handshake
 (magic "RTL0", tuner type, gain count), then an endless CU8 IQ stream;
 the client controls the dongle with 5-byte big-endian commands. This

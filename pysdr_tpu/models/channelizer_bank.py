@@ -5,17 +5,17 @@ BASELINE config 5).
 
 Where ReceiverBank pays one NCO+polyphase-decimate chain per RX (fine for
 <=6 arbitrary frequencies), the channelizer splits fs_in into N uniform
-channels with ONE branch-filter conv + ONE DFT, then runs the ordinary
-demod chain on every channel stream:
+channels with ONE branch filter + ONE DFT, then runs the ordinary demod
+chain on every channel stream:
 
-    x (fs_in) -> branch filter (conv, MXU) -> DFT matmul (MXU)
+    x (fs_in) -> branch filter (elementwise) -> DFT matmul
       -> per-channel [fine NCO -> polyphase fs_ch->fs_out -> demod]
 
-TPU-first choices:
-  * the channel transform is a DFT-matrix MATMUL, not an FFT: it rides the
-    MXU and shards over a 'ch' mesh axis with zero collectives (each
-    device computes only its channels' DFT columns; an FFT along the
-    sharded axis would need an all-to-all) — see ops/channelizer.py;
+Design choices:
+  * the channel transform is a DFT-matrix MATMUL, not an FFT: it shards
+    over a 'ch' mesh axis with zero collectives (each device computes
+    only its channels' DFT columns; an FFT along the sharded axis would
+    need an all-to-all) — see ops/channelizer.py;
   * all per-channel knobs (fine offset, mode, AF/gain/squelch/mute) are
     traced leading-axis arrays exactly like ReceiverBank, so retunes and
     mode changes are pure data and the channel axis vmaps/shards;
@@ -128,8 +128,8 @@ class ChannelizerBank:
         self.out_block = plan.out_block
         self.in_block = plan.in_block * n
 
-        # host-numpy constants baked into the executable (never device
-        # complex eagerly — ops/cplx.py)
+        # host-numpy constants baked into the executable (complex ones
+        # packed, ops/cplx.py)
         self.branch_weights = chan_ops.pack_branch_weights(
             self.chan_design.prototype(), n)
         self.w_re, self.w_im = chan_ops.dft_matrix(n)
@@ -219,23 +219,28 @@ class ChannelizerBank:
         """One channel stream, one block: fine mix -> resample -> demod.
         Shared by the local step and the sharded processor
         (parallel/chanshard.py)."""
-        z, ph2 = nco.mix_down(s, pr.nco_k, ph)
-        w = jnp.asarray(self.video_bank)[pr.video_row]
-        bb, rh2 = resample.resample_block(
-            z, rh, w, up=self.plan.up, down=self.plan.down)
-        audio, dst2 = demod_ops.demod_block(
-            bb, dst, pr.demod, self.demod_design,
-            self.carrier_taps, self.pilot_taps)
+        with jax.named_scope("channel_resample"):
+            z, ph2 = nco.mix_down(s, pr.nco_k, ph)
+            w = jnp.asarray(self.video_bank)[pr.video_row]
+            bb, rh2 = resample.resample_block(
+                z, rh, w, up=self.plan.up, down=self.plan.down)
+        with jax.named_scope("demod"):
+            audio, dst2 = demod_ops.demod_block(
+                bb, dst, pr.demod, self.demod_design,
+                self.carrier_taps, self.pilot_taps)
         return audio, ph2, rh2, dst2
 
     def _step_impl(self, state_p, x_p, params):
         state = cplx.unpack_tree(state_p, self._state_mask)
-        x = cplx.unpack(cplx.dequantize(x_p))
+        with jax.named_scope("dequantize"):
+            x = cplx.unpack(cplx.dequantize(x_p))
         n = self.n_ch
-        v, chan_hist = chan_ops.branch_filter(
-            x, state.chan_hist, self.branch_weights, n)
-        y = chan_ops.channel_transform(v, self.w_re, self.w_im)  # (M, N)
-        streams = y.T                                            # (N, M)
+        with jax.named_scope("branch_filter"):
+            v, chan_hist = chan_ops.branch_filter(
+                x, state.chan_hist, self.branch_weights, n)
+        with jax.named_scope("channel_transform"):
+            y = chan_ops.channel_transform(v, self.w_re, self.w_im)
+            streams = y.T                                        # (N, M)
 
         audio, phase, rs_hist, dstate = jax.vmap(self.channel_chain)(
             streams, state.nco_phase, state.rs_hist, state.demod,
@@ -243,8 +248,10 @@ class ChannelizerBank:
         new_state = ChanBankState(chan_hist=chan_hist, nco_phase=phase,
                                   rs_hist=rs_hist, demod=dstate)
         new_state_p, _ = cplx.pack_tree(new_state)
-        return new_state_p, cplx.quantize_audio_wire(
-            cplx.pack(audio).reshape(-1), self.audio_wire)
+        with jax.named_scope("wire_out"):
+            out = cplx.quantize_audio_wire(cplx.pack(audio).reshape(-1),
+                                           self.audio_wire)
+        return new_state_p, out
 
     def step_device(self, x_p):
         """x_p: packed float32 (in_block, 2). Returns packed audio

@@ -9,11 +9,11 @@ all 32 baudot symbols `score = H @ signal` (rtty.py:483-512), recover
 timing by integrated-score argmax (rtty.py:530-564), gate on per-symbol SNR
 (rtty.py:660-670) and run a LTRS/FIGS state machine (rtty.py:567-700).
 
-TPU-native design: the filterbank is a batched windowed rFFT over hop
-frames; ALL channels' mark/space soft bits become one tensor and the
-matched filter over (channel, timing, symbol) is a single batched matmul
-`scores = soft @ H.T` on the MXU — the reference's 100 per-channel Python
-loops collapse into one einsum. Only the per-character baudot FSM (a few
+Design: the filterbank is a batched windowed FFT over hop frames; ALL
+channels' mark/space soft bits become one tensor and the matched filter
+over (channel, timing, symbol) is a single matmul `scores = soft @ H.T`
+— the reference's 100 per-channel Python loops collapse into one
+product. Only the per-character baudot FSM (a few
 chars/s of work) stays on the host.
 """
 
@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pysdr_tpu.ops import cplx
+from pysdr_tpu.ops import cplx, precision
 
 # ITA2 / Baudot code tables (LTRS and FIGS shifts), index = 5-bit code.
 BAUDOT_LTRS = [
@@ -125,16 +125,15 @@ def soft_bits(mags, mark_bins, space_bins):
 
 def matched_scores(soft, templates):
     """scores[f, c, s] = sum_t soft[f+t, c] * templates[s, t] — every
-    (frame offset, channel, symbol) at once: ONE matmul on the MXU
-    (the reference's 100-decoder loop, rtty.py:850-853)."""
+    (frame offset, channel, symbol) at once: ONE matmul (the
+    reference's 100-decoder loop, rtty.py:850-853)."""
     n_frames, n_ch = soft.shape
     L = templates.shape[1]
     n_off = n_frames - L + 1
     idx = jnp.arange(n_off)[:, None] + jnp.arange(L)[None, :]
     windows = soft[idx]                                # (n_off, L, n_ch)
     w2 = windows.transpose(0, 2, 1).reshape(n_off * n_ch, L)
-    sc = jnp.dot(w2, templates.T,
-                 preferred_element_type=jnp.float32)   # (n_off*n_ch, 32)
+    sc = precision.dot(w2, templates.T)                # (n_off*n_ch, 32)
     return sc.reshape(n_off, n_ch, templates.shape[0])
 
 
@@ -151,9 +150,7 @@ class RTTYDecoder:
                  expire_after: int = 4, thresh_db: float = 10.0,
                  rel_db: float = 40.0):
         self.design = design
-        # HOST numpy, not a device array: jit-closure constants must not
-        # be device-resident on this backend (lowering-time device->host
-        # pulls stall — models/receiver.py constant policy)
+        # host numpy: baked into the filterbank executable as a constant
         self.window = np.asarray(design.window())
         self._fb = jax.jit(
             lambda xp: filterbank_block(xp, design, self.window))

@@ -1,7 +1,7 @@
 // Native host runtime for pysdr_tpu: lock-free SPSC ring buffer,
 // background .dat file streamer, and sample-format converters.
 //
-// This is the TPU-native equivalent of the reference's native base:
+// This is the equivalent of the reference's native base:
 // SoapySDR's C++ streaming core feeding Python-side ring buffers
 // (reference receiver.py:538-631 read_chunk over the C++ readStream;
 // ring buffers from the external sig_proc lib; CS8/int16 conversion at

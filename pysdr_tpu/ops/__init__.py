@@ -1,1 +1,2 @@
-"""Pure-JAX + Pallas DSP operator library (CPU-testable, TPU-fast)."""
+"""Pure-JAX DSP operator library (the same code runs the CPU tests and the
+GPU)."""

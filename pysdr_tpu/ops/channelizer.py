@@ -2,7 +2,7 @@
 
 The reference caps out at MAX_RX=6 independently-mixed receivers inside one
 passband (reference params.py:33, receiver.py:825-835) because each RX pays
-a full mix+decimate chain in Python. The TPU-native generalization is a
+a full mix+decimate chain in Python. The generalization here is a
 polyphase channelizer: ONE filter + ONE FFT splits the passband into N
 uniform channels at fs/N each — the standard radio-astronomy F-engine
 structure (see PAPERS.md) — giving the 64+-channel configuration of
@@ -13,8 +13,9 @@ Math (weighted overlap-add, critically sampled):
     v[m, r] = sum_k h[r + k*N] * x[(m-k)*N + r]      (branch filtering)
     y[m, c] = sum_r v[m, r] * exp(-j 2*pi c r / N)   (= DFT over r)
 so channel c is x mixed down by c*fs/N and decimated by N. Branch filtering
-is one strided conv (N input feature channels) on the MXU; the channel
-transform is one batched FFT.
+is K shifted elementwise multiply-adds over the (M, N) block view; the
+channel transform is a DFT matmul in the banks (channel_transform) and a
+batched FFT in channelize_block.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pysdr_tpu.ops import cplx, fir
+from pysdr_tpu.ops import cplx, fir, precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,11 +69,11 @@ def history_len(design: ChannelizerDesign) -> int:
 
 def dft_matrix(n_channels: int, cols: np.ndarray | None = None):
     """DFT matrix W[r, c] = exp(-2j pi c r / N) packed as two float32
-    (N, C) real/imag factors. Replacing the channel FFT with a matmul is
-    the TPU-first move: an (m, N) @ (N, C) matmul rides the MXU, and the
-    column dimension shards cleanly over a 'ch' mesh axis — each device
-    computes only its own channels' DFT rows with NO collectives (an FFT
-    along the sharded axis would force an all-to-all)."""
+    (N, C) real/imag factors. As a matmul the channel transform's column
+    dimension shards cleanly over a 'ch' mesh axis: each device computes
+    only its own channels' DFT columns with NO collectives (an FFT along
+    the sharded axis would force an all-to-all). It costs O(N) work per
+    sample against the FFT's O(log N)."""
     n = n_channels
     if cols is None:
         cols = np.arange(n)
@@ -89,9 +90,8 @@ def branch_filter(x, hist, weights, n_channels: int):
 
     v[m, r] = sum_k h_pp[r, k] * xb[m + K-1-k, r]: K shifted elementwise
     multiply-adds over the (M, N) block view, which XLA fuses into one
-    VPU pass — the earlier diagonal-feature conv form spent 64x the
-    useful MACs and paid transpose/pad copies (~30% of the chan64 device
-    step, probes/results_r05/device_profile_fused.json)."""
+    elementwise pass (a diagonal-feature conv form would spend N times
+    the useful multiply-adds and pay transpose/pad copies)."""
     n = x.shape[0]
     nch = n_channels
     xp = jnp.concatenate([hist, x])
@@ -108,11 +108,9 @@ def branch_filter(x, hist, weights, n_channels: int):
 
 def channel_transform(v, w_re, w_im):
     """v (M, N) complex64 @ DFT (N, C) -> (M, C) complex64 channel
-    streams, as four real MXU matmuls."""
-    yr = (jnp.dot(v.real, w_re, preferred_element_type=jnp.float32)
-          - jnp.dot(v.imag, w_im, preferred_element_type=jnp.float32))
-    yi = (jnp.dot(v.real, w_im, preferred_element_type=jnp.float32)
-          + jnp.dot(v.imag, w_re, preferred_element_type=jnp.float32))
+    streams, as four real matmuls."""
+    yr = (precision.dot(v.real, w_re) - precision.dot(v.imag, w_im))
+    yi = (precision.dot(v.real, w_im) + precision.dot(v.imag, w_re))
     return jax.lax.complex(yr, yi)
 
 
@@ -122,7 +120,7 @@ def channelize_block(x, hist, weights, *, n_channels: int):
 
     x: complex64 (n,) or packed float32 (n, 2); hist likewise; weights:
     float32 (N, K) per-branch taps from pack_branch_weights. Packed in
-    -> packed out (the TPU boundary format, ops/cplx.py).
+    -> packed out (the packed re/im boundary format, ops/cplx.py).
     Returns (y (n//N, N) — row m, channel c in fftfreq order, new_hist).
     """
     packed = not jnp.iscomplexobj(x)

@@ -5,7 +5,7 @@ aux bandpass at reference receiver.py:207,861-862) is a classic
 overlap-save FFT filter. Equivalent here, for the audio-rate filters
 (AF / carrier / pilot / L-R, 256 complex taps each): one whole-block FFT
 per filter instead of a 256-tap direct convolution — O(log n) work per
-sample on the VPU vs O(T) on the MXU. Bit-compatibility with the direct
+sample vs O(T). Bit-compatibility with the direct
 path is float-level, verified in tests/test_fftfilt.py; the choice is a
 static DemodDesign flag so both lower to fixed shapes.
 

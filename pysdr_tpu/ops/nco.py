@@ -5,7 +5,7 @@ frequencies snapped to multiples of SRATE/RB_SIZE so a precomputed LO table is
 periodic and phase never drifts (reference utils.py:277-289 `adjust_foffset`,
 receiver.py:552-556,822).
 
-TPU-native design: no table, no float phase accumulation. A frequency is an
+Design: no table, no float phase accumulation. A frequency is an
 integer numerator `k` of cycles/sample over a fixed power-of-two denominator
 `DENOM`; the phase index is advanced with exact int32 modular arithmetic
 (hierarchically decomposed so no product overflows int32 — int64 requires
@@ -14,9 +14,9 @@ arbitrarily long streams; the only approximation is the one-time frequency
 snap of fs/DENOM (= 0.5 Hz at 2.048 Msps), strictly finer than the
 reference's SRATE/RB_SIZE snap (≈ 62 Hz at 2.048 Msps / 32k buffer).
 
-Angles are materialized per block on the VPU (cos/sin of an int-derived
-float32 that is exactly representable), so the mixer fuses with downstream
-FIR work under XLA or in the Pallas mix+decimate kernel.
+Angles are materialized per block as elementwise cos/sin of an
+int-derived float32 that is exactly representable, so the mixer fuses
+with downstream FIR work under XLA.
 """
 
 from __future__ import annotations

@@ -4,18 +4,18 @@ The reference's decimator (`rx.dec`, external sig_proc; driven at reference
 receiver.py:553 and rate-planned at params.py:405-444) resamples each
 channel from the RF rate to the audio rate by a rational UP/DOWN with a
 selectable anti-alias ("video") filter. Here the whole polyphase computation
-is expressed as ONE strided `lax.conv_general_dilated` so XLA can tile it
-onto the MXU:
+is one framed product, a window of L = down + Kp - 1 inputs at stride
+`down` against all `up` phases at once:
 
   y[j*up + u] = sum_t  h_pp[p_u, t] * x[j*down + off_u - t]
       with p_u = (u*down) % up,  off_u = floor(u*down/up)
 
-All `up` phases become output channels of a single conv with window
-L = down + Kp - 1 and stride `down` (weights are the phase taps scattered to
-their per-phase alignment). Real and imaginary parts ride the conv batch
-dimension. Streaming state is the last Kp-1 input samples, so chunked
-processing is bit-identical to whole-signal processing (the state-carry
-pattern the reference proves in sigs/iir.py:83-105).
+(the weights are the phase taps scattered to their per-phase alignment,
+pack_weights), evaluated as shifted-slab matmuls (_slab_matmul). Real and
+imaginary parts are separate operands. Streaming state is the last Kp-1
+input samples, so chunked processing is bit-identical to whole-signal
+processing (the state-carry pattern the reference proves in
+sigs/iir.py:83-105).
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from pysdr_tpu.ops import precision
 
 
 def taps_per_phase(ntaps: int, up: int) -> int:
@@ -64,29 +66,6 @@ def history_len(ntaps: int, up: int) -> int:
     return taps_per_phase(ntaps, up) - 1
 
 
-def _mxu_lhs_dtype():
-    """Operand dtype for the slab matmuls.
-
-    On TPU, DEFAULT matmul precision already rounds f32 operands to
-    bfloat16 before the MXU pass, so casting explicitly is numerically
-    IDENTICAL there (same bf16 rounding, same f32 accumulate via
-    preferred_element_type) — it just makes the operand path bf16-native
-    so producers can emit the matmul dtype directly. (Measured alone it
-    was a wash — XLA still retiled either way; the structural win was
-    mixed_resample_bank building ONE shared slab matrix instead of
-    2*n_rx, PERF.md.) On CPU/GPU backends f32 matmuls really run in
-    f32, so there the cast would lose precision — keep f32
-    (golden-parity and sharded==serial tests run on CPU). An EXPLICIT
-    jax_default_matmul_precision (e.g. 'float32' while debugging audio
-    quality) must keep its meaning, so the cast only applies when the
-    user left precision at the backend default.
-    """
-    import jax
-    if jax.config.jax_default_matmul_precision is not None:
-        return jnp.float32
-    return jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
-
-
 def _slab_matmul(xp, weights, m: int, down: int, up: int):
     """y[j, u] = sum_s xp[j*down + s] * W[u, s]  without materializing
     the (m, L) frame matrix.
@@ -98,28 +77,23 @@ def _slab_matmul(xp, weights, m: int, down: int, up: int):
         y = sum_t  X[t:t+m] @ W[:, t*down:(t+1)*down].T
 
     q (= ceil(L/down)) skinny matmuls over shifted views of ONE buffer.
-    The previous formulation concatenated the views into an explicit
-    (m, L) frame matrix first; a real-chip jax.profiler trace showed
-    XLA materializing it — ~L/down x the input read AND written per
-    step (bank4: 3.4 GB touched per 33 MB block, 95 ms at 36 GB/s,
-    probes/results_r05/). This form touches the input q times and
-    writes only the (m, up) output. Works for real or complex xp
-    (complex splits into re/im in the caller)."""
+    Concatenating the views into an explicit (m, L) frame matrix first
+    would make XLA materialize it, ~L/down times the input read and
+    written per step; this form touches the input q times and writes
+    only the (m, up) output. Works for real xp (complex splits into
+    re/im in the caller)."""
     L = weights.shape[-1]
     q = -(-L // down)  # ceil
     need = (m + q) * down
     xp = jnp.concatenate([xp, jnp.zeros(need - xp.shape[0], xp.dtype)])
-    lhs_dt = _mxu_lhs_dtype()
-    X = xp.astype(lhs_dt).reshape(m + q, down)
+    X = xp.reshape(m + q, down)
     # pad W (up, L) out to (up, q*down), then slab t is (down, up)
     w = weights[:, 0, :]
     w = jnp.pad(w, ((0, 0), (0, q * down - L)))
-    wq = w.reshape(w.shape[0], q, down).astype(lhs_dt)  # (up, q, down)
-    y = jnp.dot(X[0:m], wq[:, 0, :].T,
-                preferred_element_type=jnp.float32)
+    wq = w.reshape(w.shape[0], q, down)        # (up, q, down)
+    y = precision.dot(X[0:m], wq[:, 0, :].T)
     for t in range(1, q):
-        y = y + jnp.dot(X[t:t + m], wq[:, t, :].T,
-                        preferred_element_type=jnp.float32)
+        y = y + precision.dot(X[t:t + m], wq[:, t, :].T)
     return y                                   # (m, up)
 
 
@@ -134,10 +108,8 @@ def resample_block(x, hist, weights, *, up: int, down: int):
     returns : (y complex64 (n*up//down,), new_hist (Kp-1,))
 
     Implementation note: formulated as q shifted-slab matmuls
-    (_slab_matmul) rather than a strided conv — the XLA TPU conv
-    emitter in this environment takes pathologically long to compile
-    window=down+Kp-1 / stride=down convs, and the earlier one-big-
-    framed-matmul form materialized the frame matrix (see _slab_matmul).
+    (_slab_matmul) rather than a strided window=down+Kp-1 conv or one
+    framed matmul over a materialized frame matrix (see _slab_matmul).
     """
     n = x.shape[0]
     assert n % down == 0, (n, down)
@@ -187,12 +159,11 @@ def mixed_resample_bank(x, hist, weights, k, p0, *, up: int, down: int):
 
         y_ch[j, u] = A_ch[j] · Σ_t (X[t:t+m] @ (wq[:,t,:]·C_ch[t]·B_ch).T)[j, u]
 
-    Why: the r5 device trace (PERF.md) showed 83% of the bank4 step
-    spent materializing + bf16-retiling the four per-channel mixed
-    streams (131 MB written+reread per block). Here the slab matrix is
-    built ONCE (2 components instead of 2·n_rx) and every channel rides
-    the N dimension of the same matmuls (N = 2·n_rx·up instead of 3 —
-    also better MXU tiling).
+    Why: the per-channel form writes and rereads one mixed stream per
+    channel (n_rx x 8 bytes per RF sample, per block). Here the slab
+    matrix is built ONCE (2 components instead of 2·n_rx) and every
+    channel rides the N dimension of the same matmuls (N = 2·n_rx·up
+    instead of up).
 
     x: complex64 (n,) raw RF block, n % down == 0 (shared by the bank);
     hist: complex64 (Kp-1,) raw tail of the previous block;
@@ -212,15 +183,12 @@ def mixed_resample_bank(x, hist, weights, k, p0, *, up: int, down: int):
     assert up_w == up
     q = -(-L // down)
     m = n // down
-    # single concatenation (hist | x | zero tail) — measured a wash vs
-    # concat-then-pad on the chip (XLA merges the copies), kept for the
-    # single-pass form
+    # one concatenation (hist | x | zero tail) builds the slab buffer
     xp = jnp.concatenate(
         [hist, x,
          jnp.zeros((m + q) * down - n - hist.shape[0], x.dtype)])
-    lhs_dt = _mxu_lhs_dtype()
-    Xr = xp.real.astype(lhs_dt).reshape(m + q, down)
-    Xi = xp.imag.astype(lhs_dt).reshape(m + q, down)
+    Xr = xp.real.reshape(m + q, down)
+    Xi = xp.imag.reshape(m + q, down)
 
     kd = nco.mul_mod(k, down)                              # (n_rx,)
     B = jax.vmap(lambda kk: nco.phasor_table(kk, 0, down))(k)
@@ -234,14 +202,12 @@ def mixed_resample_bank(x, hist, weights, k, p0, *, up: int, down: int):
     nu = n_rx * up
     # RHS for slab t: (down, 2*nu) = [Re W_t | Im W_t]
     Wt = Wc.transpose(2, 3, 0, 1).reshape(q, down, nu)     # (q, down, nu)
-    R = jnp.concatenate([Wt.real, Wt.imag], axis=2).astype(lhs_dt)
-    Sr = jnp.dot(Xr[0:m], R[0], preferred_element_type=jnp.float32)
-    Si = jnp.dot(Xi[0:m], R[0], preferred_element_type=jnp.float32)
+    R = jnp.concatenate([Wt.real, Wt.imag], axis=2)
+    Sr = precision.dot(Xr[0:m], R[0])
+    Si = precision.dot(Xi[0:m], R[0])
     for t in range(1, q):
-        Sr = Sr + jnp.dot(Xr[t:t + m], R[t],
-                          preferred_element_type=jnp.float32)
-        Si = Si + jnp.dot(Xi[t:t + m], R[t],
-                          preferred_element_type=jnp.float32)
+        Sr = Sr + precision.dot(Xr[t:t + m], R[t])
+        Si = Si + precision.dot(Xi[t:t + m], R[t])
     # (Xr + jXi) @ (Wr + jWi): re = XrWr - XiWi, im = XrWi + XiWr
     y_re = Sr[:, :nu] - Si[:, nu:]
     y_im = Sr[:, nu:] + Si[:, :nu]
@@ -262,12 +228,14 @@ def fir_block(x, hist, taps):
         out = jax.lax.conv_general_dilated(
             lhs, w, window_strides=(1,), padding="VALID",
             dimension_numbers=("NCH", "OIH", "NCH"),
+            precision=precision.matmul_precision(),
             preferred_element_type=jnp.float32)
         y = jax.lax.complex(out[0, 0], out[1, 0])
     else:
         out = jax.lax.conv_general_dilated(
             xp[None, None, :], w, window_strides=(1,), padding="VALID",
             dimension_numbers=("NCH", "OIH", "NCH"),
+            precision=precision.matmul_precision(),
             preferred_element_type=jnp.float32)
         y = out[0, 0]
     new_hist = xp[x.shape[0]:] if t > 1 else hist
@@ -288,6 +256,7 @@ def fir_block_cmpx(x, hist, taps_c):
     out = jax.lax.conv_general_dilated(
         lhs, w, window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=precision.matmul_precision(),
         preferred_element_type=jnp.float32)                 # (1, 2, n)
     y = jax.lax.complex(out[0, 0], out[0, 1])
     new_hist = xp[x.shape[0]:] if t > 1 else hist

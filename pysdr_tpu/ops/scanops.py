@@ -2,14 +2,14 @@
 
 The reference's AGC / squelch / DC removal are one-pole IIR feedback loops
 run sample-by-sample in numpy (`y = filter(b, [1, b-1], x)` — reference
-sigs/agc.m:6-13, sigs/squelch.m:100-137). Serial loops don't map to TPU;
-every first-order linear recurrence
+sigs/agc.m:6-13, sigs/squelch.m:100-137). Serial loops don't map to an
+accelerator; every first-order linear recurrence
 
     y[n] = a[n] * y[n-1] + b[n]
 
 is instead evaluated with `jax.lax.associative_scan` over the monoid
-(a, b) ∘ (a', b') = (a*a', a'*b + b')  — O(log n) depth, fully vectorized
-on the VPU, and bit-equivalent (up to fp reassociation) to the serial loop.
+(a, b) ∘ (a', b') = (a*a', a'*b + b')  — O(log n) depth, fully
+vectorized, and bit-equivalent (up to fp reassociation) to the serial loop.
 Streaming state is the final y, folded into b[0] of the next block, so
 chunked == whole-signal (the pattern proven in reference sigs/iir.py:83-105).
 """

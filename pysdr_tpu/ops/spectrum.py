@@ -49,7 +49,7 @@ class SpectrumDesign:
 def periodogram(x, window, *, nfft: int, hop: int, average: bool = True):
     """Welch-style PSD of one block, fftshifted, in dB.
 
-    x: complex64 (n,) or packed float32 (n, 2) (the TPU-side boundary
+    x: complex64 (n,) or packed float32 (n, 2) (the packed boundary
     format, ops/cplx.py). Returns (nfft,) float32 if average else
     (nseg, nfft). Two-sided (complex input), matching the reference RF/BB
     panes; AF panes pass real audio cast to complex.

@@ -1,19 +1,21 @@
 """Multi-host distributed initialization + scaling harness.
 
 The reference is strictly single-host (SURVEY.md §2.10 row 5: mp.Pipe/
-Queue/Event intra-host only). The TPU framework scales across hosts with
+Queue/Event intra-host only). This framework scales across hosts with
 `jax.distributed.initialize`: every host runs the same program, the mesh
 is built over the GLOBAL device list, and the in-graph collectives
-(ppermute halos, channel shards) ride ICI within a slice and DCN across
-hosts — no application-level message passing at all.
+(ppermute halos, channel shards) ride the device interconnect within a
+host and the network across hosts — no application-level message
+passing at all.
 
 Usage (one command per host):
 
     python -m pysdr_tpu.parallel.distributed \
         --coordinator HOST0:1234 --nprocs 4 --proc-id $I [--demo rx|chan]
 
-On TPU pods, jax.distributed.initialize() auto-discovers everything and
-the flags are optional. The module also backs the multi-process CPU test
+The coordinator address, process count and process id are always given
+explicitly (flags, or PYSDR_TPU_NPROCS for the count). The module also
+backs the multi-process CPU test
 (tests/test_distributed.py) which emulates hosts with subprocesses.
 """
 
@@ -29,25 +31,15 @@ def init_distributed(coordinator: str | None = None,
     """Initialize jax.distributed when running multi-process; no-op (and
     False) for single-process runs so the same entry point serves both.
 
-    On a real TPU pod, pass NO flags: the cloud environment variables
-    identify the pod and jax.distributed.initialize() auto-discovers
-    everything. Without those env hints and without flags this stays
-    single-process LOUDLY (each process building a local-only mesh with
-    pid=0 everywhere is exactly the silent failure to avoid)."""
+    Without flags this stays single-process LOUDLY (each process building
+    a local-only mesh with pid=0 everywhere is exactly the silent failure
+    to avoid)."""
     import jax
     if num_processes is None:
         num_processes = int(os.environ.get("PYSDR_TPU_NPROCS", "1"))
     if num_processes <= 1 and coordinator is None:
-        # TPU-pod auto-discovery hints (cloud metadata / megascale env)
-        pod_env = any(os.environ.get(k) for k in
-                      ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-                       "CLOUD_TPU_TASK_ID"))
-        if pod_env:
-            jax.distributed.initialize()
-            return True
         print("init_distributed: single-process (no --coordinator/"
-              "--nprocs flags and no TPU-pod environment detected)",
-              flush=True)
+              "--nprocs flags)", flush=True)
         return False
     kw = {}
     if coordinator:
@@ -189,7 +181,7 @@ def demo_channelizer():
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="pysdr_tpu.parallel.distributed")
     ap.add_argument("--coordinator", default=None,
-                    help="HOST:PORT of process 0 (TPU pods auto-discover)")
+                    help="HOST:PORT of process 0")
     ap.add_argument("--nprocs", type=int, default=None)
     ap.add_argument("--proc-id", type=int, default=None)
     ap.add_argument("--n-stream", type=int, default=1)

@@ -1,8 +1,8 @@
 """Device mesh construction.
 
 The reference's parallel axes are OS processes: one process per RX
-(MP_SCHEME 3, reference am.py:85-114) and thread pipelines. The TPU-native
-axes are a 2-D device mesh:
+(MP_SCHEME 3, reference am.py:85-114) and thread pipelines. Here the axes
+are a 2-D device mesh:
 
   'ch'     — channel parallelism: shards of the vmapped receiver bank
              (the arbitrary-N generalization of MAX_RX=6);
@@ -10,7 +10,8 @@ axes are a 2-D device mesh:
              concurrently with overlap-discard halos (SURVEY.md §2.10).
 
 Multi-host runs initialize jax.distributed outside and pass the global
-device list; intra-slice collectives ride ICI.
+device list. On one host every card reaches every other at the same
+rate, so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

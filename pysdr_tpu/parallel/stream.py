@@ -1,12 +1,12 @@
 """Stream-axis (time) parallelism: overlap-discard with halo exchange.
 
 The reference processes blocks strictly serially because FIR/NCO/AGC state
-carries across chunk boundaries (SURVEY.md §2.10, sigs/iir.py:83-105). The
-TPU design parallelizes time: a long IQ stream is cut into S contiguous
+carries across chunk boundaries (SURVEY.md §2.10, sigs/iir.py:83-105). This
+design parallelizes time: a long IQ stream is cut into S contiguous
 segments, one per 'stream' mesh row; each segment is processed with
 
   * an RF *halo* of H samples fetched from the left neighbor with
-    `lax.ppermute` over ICI (shard 0 gets zeros) — this warms up every FIR
+    `lax.ppermute` (shard 0 gets zeros) — this warms up every FIR
     history (resampler Kp-1, AF/carrier/pilot taps) and settles the
     exponential-memory recurrences (AGC, DC, de-emphasis) before the
     segment proper begins; the warm-up audio is discarded;
@@ -18,7 +18,7 @@ segments, one per 'stream' mesh row; each segment is processed with
 The result matches serial processing everywhere except inside the first
 halo (validated in tests/test_stream_parallel.py). This is the SDR analogue
 of ring-attention-style sequence parallelism: the only communication is a
-neighbor halo over ICI, once per segment.
+neighbor halo, once per segment.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Environment / device exploration tool.
 
-The TPU-era equivalent of the reference's device smoke tools —
+The equivalent of the reference's device smoke tools —
 `playpen.py` (Soapy API exploration, playpen.py:41-195), `soapy.py` /
 `simple.py` enumeration scripts, and the `check_sdr_settings` dump
-(utils.py:358-422): enumerate the compute "devices" (TPU chips / CPU
+(utils.py:358-422): enumerate the compute devices (GPUs / CPU
 mesh), probe the source layer (replay-file headers, synth self-test,
 native C++ streamer), and run a tiny end-to-end smoke block.
 

@@ -3,7 +3,7 @@
 Equivalent of the reference's `sig_proc.up_dn` and its offline sweep tool
 (reference srates.py:28-74, params.py:405-406): given an RF input rate and a
 desired audio output rate, find the minimal rational (UP, DOWN) such that
-fs_out = fs_in * UP / DOWN, and derive TPU-friendly block sizes.
+fs_out = fs_in * UP / DOWN, and derive block sizes.
 
 The reference validates e.g. 2.048 MHz -> 48 kHz = 3/128 and
 8 MHz -> 192 kHz = 3/125 (srates.py:35-74); tests/test_resample.py
@@ -31,7 +31,7 @@ class RatePlan:
     """A fully derived rate/block plan for one resampling stage.
 
     The reference derives OUT_CHUNK_SIZE=1024 and
-    IN_CHUNK_SIZE = 1024*DOWN/UP (params.py:440-444). On TPU we keep the
+    IN_CHUNK_SIZE = 1024*DOWN/UP (params.py:440-444). Here we keep the
     same invariants (input block divisible by DOWN so the polyphase phase
     pattern is block-periodic) but default to much larger blocks: the real
     frame-time constraint is the host audio sink, not the compute.

@@ -5,7 +5,7 @@ reference receiver.py:837-874, driven by `audio_out` receiver.py:153-225):
 a player object consumes an audio ring buffer in fixed chunks at the audio
 clock rate and pushes frames to an output device. Here the "device" is a
 pluggable sink (wav file, callback into another process, or discard) since
-the TPU host has no sound card; the pacing, watermark-deferred start,
+a headless compute host has no sound card; the pacing, watermark-deferred start,
 pause/resume/stop lifecycle, stereo packing and gain laws all mirror the
 reference:
 

@@ -2,9 +2,10 @@
 
 Provides NativeRing (lock-free SPSC ring) and NativeStreamer (background
 .dat file reader with format conversion) with the same API shape as the
-Python RingBuffer / io.datfile.DatReader. Builds libsdrio.so on first use
-if a compiler is available; falls back cleanly (available() == False)
-otherwise. No pybind11 in this image — plain C ABI + ctypes.
+Python RingBuffer / io.datfile.DatReader. libsdrio.so is not committed: it
+is built from sdrio.cpp on first use when a compiler is available, and
+callers fall back cleanly (available() == False) otherwise. Plain C ABI +
+ctypes, no pybind11.
 """
 
 from __future__ import annotations
@@ -39,20 +40,34 @@ def _src_hash() -> str:
 
 
 def _build() -> bool:
+    """Compile the library under a private temporary name and rename it
+    into place, so a concurrent process (a parallel test worker) never
+    loads a half-written file. The hash sidecar is renamed in after the
+    library: a reader that sees the new library with the old hash only
+    rebuilds once more."""
+    import tempfile
+    tmp_lib = tmp_hash = None
     try:
-        # -B: _build is only reached when the lib is missing or its
-        # source hash mismatches — make's own mtime rule may consider a
-        # hash-stale .so "up to date" (arbitrary checkout mtimes), and a
-        # no-op make here would stamp the new hash onto the old binary
-        subprocess.run(["make", "-C", _DIR, "-s", "-B"], check=True,
-                       capture_output=True, timeout=120)
-        ok = os.path.exists(_LIB_PATH)
-        if ok:
-            with open(_HASH_PATH, "w") as f:
-                f.write(_src_hash())
-        return ok
+        fd, tmp_lib = tempfile.mkstemp(dir=_DIR, prefix=".libsdrio.",
+                                       suffix=".so")
+        os.close(fd)
+        # -B: make's own mtime rule may consider the target up to date
+        out = os.path.basename(tmp_lib)
+        subprocess.run(["make", "-C", _DIR, "-s", "-B", "OUT=" + out, out],
+                       check=True, capture_output=True, timeout=120)
+        fd, tmp_hash = tempfile.mkstemp(dir=_DIR, prefix=".libsdrio.",
+                                        suffix=".srchash")
+        with os.fdopen(fd, "w") as f:
+            f.write(_src_hash())
+        os.replace(tmp_lib, _LIB_PATH)
+        os.replace(tmp_hash, _HASH_PATH)
+        return True
     except Exception:
         return False
+    finally:
+        for p in (tmp_lib, tmp_hash):
+            if p and os.path.exists(p):
+                os.unlink(p)
 
 
 def _stale() -> bool:

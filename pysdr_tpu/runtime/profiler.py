@@ -2,7 +2,7 @@
 
 Equivalent of the reference `Profiler` (duty-cycled cProfile printed against
 the nominal frame time, reference profiler.py:27-46) and `Profiler2`
-(start/stop wall-clock, profiler.py:49-71). On TPU the useful unit is the
+(start/stop wall-clock, profiler.py:49-71). On the device the useful unit is the
 block: samples/s, realtime factor, and optional jax.profiler traces.
 """
 

@@ -4,7 +4,7 @@ Functional equivalent of reference Tables.py:34-62 (mode list, AF/VIDEO/PAN
 bandwidth menus, RTL/SDRplay rate lists, best-filter picker) re-expressed as
 plain data: bandwidths are Hz floats (0.0 == "Max"/passthrough), and every
 menu has a parallel pre-designed on-device filter bank (see ops/fir.py) so a
-bandwidth change is a bank-index swap, never a recompile — the TPU analogue of
+bandwidth change is a bank-index swap, never a recompile — the analogue of
 the reference hot-swapping `dec.h` from `dec.filter_bank` (gui.py:1672-1714).
 """
 

@@ -3,7 +3,7 @@
 The reference AGC (external sig_proc; loop filter documented in
 sigs/agc.m:6-13, state dumped at watchdog.py:296-302) is an asymmetric
 envelope follower with a one-pole smoother (beta=0.1) driving
-gain = ref/envelope. These tests pin the TPU formulation's attack/decay
+gain = ref/envelope. These tests pin the scan formulation's attack/decay
 behavior against a per-sample serial loop and check the streaming
 state-carry invariant.
 """
@@ -16,7 +16,7 @@ from pysdr_tpu.ops import agc as agc_ops
 
 def serial_envelope(mag, attack, decay, env0=0.0):
     """Per-sample asymmetric one-pole envelope follower — the serial form
-    the TPU window-max + scan approximates. alpha = attack when the input
+    the window-max + scan formulation approximates. alpha = attack when the input
     exceeds the envelope (rising), decay when below (falling)."""
     env = np.empty_like(mag)
     e = env0

@@ -1,10 +1,53 @@
+import os
+
 import numpy as np
 import pytest
 
 from pysdr_tpu.runtime import native
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native lib not built")
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    # decided per test, never at import: every worker imports this file
+    if not native.available():
+        pytest.skip("native library could not be built here")
+
+
+def _leftovers():
+    return [f for f in os.listdir(native._DIR) if f.startswith(".libsdrio.")]
+
+
+def test_build_renames_a_complete_library_into_place(monkeypatch):
+    """The build compiles under a private name and renames it over the
+    library path in one step, hash sidecar after: a concurrent loader
+    sees the old file or the new one, never a partial one."""
+    calls = []
+    real_replace = os.replace
+
+    def spy(src, dst):
+        with open(src, "rb") as f:
+            calls.append((src, dst, f.read(4)))
+        real_replace(src, dst)
+
+    monkeypatch.setattr(native.os, "replace", spy)
+    assert native._build()
+    assert [d for _, d, _ in calls] == [native._LIB_PATH, native._HASH_PATH]
+    src, _, magic = calls[0]
+    assert src != native._LIB_PATH and magic == b"\x7fELF"
+    assert not native._stale()
+    assert _leftovers() == []
+
+
+def test_failed_build_leaves_library_and_no_temp(monkeypatch):
+    before = os.stat(native._LIB_PATH).st_ino
+
+    def boom(*a, **k):
+        raise OSError("no compiler")
+
+    monkeypatch.setattr(native.subprocess, "run", boom)
+    assert native._build() is False
+    assert os.stat(native._LIB_PATH).st_ino == before
+    assert _leftovers() == []
 
 
 def test_native_ring_roundtrip(rng):
@@ -86,11 +129,7 @@ def test_app_replay_uses_native_streamer(tmp_path):
     import numpy as np
     from pysdr_tpu import app as app_mod
     from pysdr_tpu.io import datfile
-    from pysdr_tpu.runtime import native as native_mod
 
-    if not native_mod.available():
-        import pytest
-        pytest.skip("native lib not built")
     fs = 512e3
     n = 1 << 19
     t = np.arange(n) / fs
@@ -135,9 +174,6 @@ def test_native_cu8_matches_numpy_lut():
     from pysdr_tpu.io import rtltcp
     from pysdr_tpu.runtime import native
 
-    if not native.available():
-        import pytest
-        pytest.skip("native library not built")
     raw = np.arange(512, dtype=np.uint8)
     a = native.convert_cu8(raw)
     b = rtltcp._CU8_LUT[raw].reshape(-1, 2)

@@ -1,7 +1,7 @@
 """rtl_tcp network source: protocol client + fake server + full app
 chain (the network path to live RTL hardware — reference reaches
-dongles over USB via librtlsdr, BUILD_RTL:37-99; a TPU host uses the
-dongle's standard rtl_tcp server instead)."""
+dongles over USB via librtlsdr, BUILD_RTL:37-99; here the dongle's
+standard rtl_tcp server stands in)."""
 
 import numpy as np
 
